@@ -1,16 +1,14 @@
 #!/usr/bin/env python
-"""Measure the stacked-ensemble payoff on lane-starved decks.
+"""Measure the stacked-ensemble payoff on decks with few rows.
 
-Claim under test (radiative_transfer_tpu/ensemble.py): a deck that
-underfills the VPU lanes (gray S_8: Bh = M/2*G = 4 direction-half rows)
-cannot reach the fused-kernel rate alone, but an ensemble of K such
-members stacked along the group axis (G' = K*G, Bh' = K*Bh) fills the
-lanes and runs the WHOLE ensemble at near-headline aggregate rate —
-i.e. K members for roughly the price of one.
+Claim under test (radiative_transfer/ensemble.py): a deck with few
+direction-half rows (gray S_8: Bh = M/2*G = 4) cannot fill the device
+alone, but an ensemble of K such members stacked along the group axis
+(G' = K*G, Bh' = K*Bh) runs the WHOLE ensemble at near-headline
+aggregate rate — i.e. K members for roughly the price of one.
 
-Compares, at fixed per-member workload (honest tunnel protocol,
-benchmarks/timing.py):
-  baseline  — one member on the auto-selected single-chip engine,
+Compares, at fixed per-member workload (benchmarks/timing.py):
+  baseline  — one member on the auto-selected one-device engine,
               aggregate rate = K * (member rate) if run back-to-back;
   stacked   — solve_ensemble_stacked's engine on the G'=K*G problem.
 
@@ -29,10 +27,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
-from radiative_transfer_tpu.config.config import Config
-from radiative_transfer_tpu.models import transport
-from radiative_transfer_tpu import ensemble
-from radiative_transfer_tpu.parallel import make_multichip_engine
+from radiative_transfer.config.config import Config
+from radiative_transfer.models import transport
+from radiative_transfer import ensemble
+from radiative_transfer.parallel import make_multichip_engine
 from benchmarks.timing import time_best
 
 C = 299.79245800  # cm/sh
@@ -64,17 +62,16 @@ def main():
     ap.add_argument("--steps", type=int, default=64)
     ap.add_argument("--K", type=int, nargs="+", default=[4, 16, 64])
     ap.add_argument("--json", type=str, default=None)
-    ap.add_argument("--engine", type=str, default="auto",
-                    help="'auto' (f32 kernels) or 'df' (double-float "
-                    "f64-grade kernels) — the df rows sit beside the "
-                    "f32 ones in ensemble_stacking.json (VERDICT r4 #2)")
+    ap.add_argument("--dtype", default="float32",
+                    choices=("float32", "float64"))
     args = ap.parse_args()
 
     cfg = gray_cfg(args.M, args.G, args.N, args.steps)
     tables, _, _ = transport.build_tables(cfg)
 
     rows = []
-    eng1 = make_multichip_engine(cfg, tables, None, engine=args.engine)
+    dtype = np.dtype(args.dtype)
+    eng1 = make_multichip_engine(cfg, tables, None, dtype=dtype)
     r1 = rate_engine(eng1, cfg, args.steps)
     print(f"single member  Bh={cfg.M // 2 * cfg.G:4d}  "
           f"{type(eng1).__name__:20s} {r1 / 1e9:8.1f} G/s")
@@ -85,8 +82,7 @@ def main():
         kappas = np.full((K, cfg.G), cfg.kappa_grey)
         cfg_s, tables_s, _ = ensemble.stack_ensemble(
             cfg, tables, {"kappa": kappas})
-        eng = make_multichip_engine(cfg_s, tables_s, None,
-                                    engine=args.engine)
+        eng = make_multichip_engine(cfg_s, tables_s, None, dtype=dtype)
         agg = rate_engine(eng, cfg_s, args.steps)
         # Serial baseline: K members back-to-back still process updates
         # at r1 overall, so the ensemble speedup is agg / r1.
@@ -98,14 +94,13 @@ def main():
                      "speedup_vs_serial": agg / r1})
 
     if args.json:
-        # df rows sit BESIDE the f32 ones in the same artifact: merge
-        # into {"cfg": ..., "rows": [f32...], "rows_df": [df...]}.
+        import jax
+
+        dev = jax.devices()[0]
         doc = {"cfg": {"M": args.M, "G": args.G, "N": args.N,
-                       "steps": args.steps}}
-        if os.path.exists(args.json):
-            with open(args.json) as f:
-                doc.update(json.load(f))
-        doc["rows_df" if args.engine == "df" else "rows"] = rows
+                       "steps": args.steps, "dtype": args.dtype},
+               "platform": dev.platform, "device_kind": dev.device_kind,
+               "rows": rows}
         with open(args.json, "w") as f:
             json.dump(doc, f, indent=1)
         print(f"wrote {args.json}")

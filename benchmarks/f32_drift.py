@@ -15,16 +15,16 @@ BDF2 4-phase cycle is stable — see docs/QUIRKS.md #14):
 
 For each deck, the f64 general engine (models/transport) is advanced
 in chunks and at each checkpoint the f32 fast engine (ops/fast_sweep)
-and the f32 Pallas engine (ops/pallas_sweep) are compared on the cell
-averaged psi: max over (direction, group, cell) of |f32 - f64| / max|f64|.
+and the f32 GPU kernel engine (ops/triton_sweep) are compared on the
+cell averaged psi: max over (direction, group, cell) of
+|f32 - f64| / max|f64|.
 
 Usage:
-    python benchmarks/f32_drift.py [--quick] [--json]
+    python benchmarks/f32_drift.py [--quick] [--json] [--engines fast,triton]
 
-Run on CPU (f64 reference needs x64; Pallas interprets) or on TPU
-(Pallas compiles; the f64 reference still runs, slower). Results feed
-docs/PERFORMANCE.md section "f32 accuracy" and the bounds asserted in
-tests/test_f32_drift.py.
+The triton engine needs a GPU; on the CPU pass ``--engines fast``.
+Results feed docs/PERFORMANCE.md section "f32 accuracy" and the bounds
+asserted in tests/test_f32_drift.py.
 """
 
 from __future__ import annotations
@@ -39,9 +39,9 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import jax.numpy as jnp
 import numpy as np
 
-from radiative_transfer_tpu import load_config
-from radiative_transfer_tpu.models import transport
-from radiative_transfer_tpu.ops import fast_sweep, pallas_sweep
+from radiative_transfer import load_config
+from radiative_transfer.models import transport
+from radiative_transfer.ops import fast_sweep, triton_sweep
 
 C_LIGHT = 299.79245800  # cm/sh (Constants.h)
 
@@ -54,19 +54,23 @@ def psi_of_state(ends) -> np.ndarray:
     return np.asarray(transport.psi_from_ends(jnp.asarray(ends)))
 
 
-def run_deck(name: str, cfg, checkpoints, engines=("fast", "pallas")):
-    """Advance f64 reference + f32 engines in lockstep; report drift."""
+ENGINES = {
+    "fast_f32": lambda cfg, tables: fast_sweep.FastEngine(
+        cfg, tables, dtype=jnp.float32),
+    "triton_f32": lambda cfg, tables: triton_sweep.TritonEngine(cfg, tables),
+}
+
+
+def run_deck(name: str, cfg, checkpoints, engines=ENGINES):
+    """Advance the f64 reference and each engine of ``engines`` (name ->
+    factory(cfg, tables)) in lockstep; report drift per checkpoint."""
     tables, _, _ = transport.build_tables(cfg)
 
     ref_state = transport.initial_state(cfg, tables)
-
-    eng_f = st_f = eng_p = st_p = None
-    if "fast" in engines:
-        eng_f = fast_sweep.FastEngine(cfg, tables, dtype=jnp.float32)
-        st_f = eng_f.init_state()
-    if "pallas" in engines:
-        eng_p = pallas_sweep.PallasEngine(cfg, tables)
-        st_p = eng_p.init_state()
+    live = {}
+    for key, make in engines.items():
+        eng = make(cfg, tables)
+        live[key] = (eng, eng.init_state())
 
     rows = []
     done = 0
@@ -76,14 +80,11 @@ def run_deck(name: str, cfg, checkpoints, engines=("fast", "pallas")):
         want = psi_of_state(ref_state.ends)
         scale = np.max(np.abs(want))
         row = {"deck": name, "steps": n}
-        if st_f is not None:
-            st_f = eng_f.solve(st_f, k)
-            got = psi_of_state(eng_f.ends(st_f))
-            row["fast_f32"] = float(np.max(np.abs(got - want)) / scale)
-        if st_p is not None:
-            st_p = eng_p.solve(st_p, k)
-            got = psi_of_state(eng_p.ends(st_p))
-            row["pallas_f32"] = float(np.max(np.abs(got - want)) / scale)
+        for key, (eng, st) in live.items():
+            st = eng.solve(st, k)
+            live[key] = (eng, st)
+            got = psi_of_state(eng.ends(st))
+            row[key] = float(np.max(np.abs(got - want)) / scale)
         rows.append(row)
         done = n
     return rows
@@ -94,7 +95,11 @@ def main():
     ap.add_argument("--quick", action="store_true",
                     help="short horizons (CI-scale)")
     ap.add_argument("--json", action="store_true", help="JSON lines output")
+    ap.add_argument("--engines", default="fast,triton",
+                    help="comma list of fast, triton")
     args = ap.parse_args()
+    engines = {f"{e}_f32": ENGINES[f"{e}_f32"]
+               for e in args.engines.split(",")}
 
     prm = Path(__file__).resolve().parent.parent / "prm"
     rows = []
@@ -102,33 +107,34 @@ def main():
     # gray transient: reflective/source BCs, the 1000-step shipped run
     cfg = load_config(str(prm / "single_group.prm"))
     cps = (50, 250) if args.quick else (100, 250, 500, 1000)
-    rows += run_deck("gray", cfg, cps)
+    rows += run_deck("gray", cfg, cps, engines)
 
     # multigroup equilibrium with v/c correction, 500-step shipped run
     cfg = load_config(str(prm / "multi_group_equilibrium.prm"))
     cps = (50, 200) if args.quick else (100, 250, 500)
-    rows += run_deck("mg-equilib", cfg, cps)
+    rows += run_deck("mg-equilib", cfg, cps, engines)
 
     # LLNL 124-group: its real 2-step run at shipped dt...
     cfg = load_config(str(prm / "llnl_slab_test.prm"))
-    rows += run_deck("llnl-shipped", cfg, (2,))
+    rows += run_deck("llnl-shipped", cfg, (2,), engines)
     # ...and a longer transient at a BDF2-stable dt (QUIRKS.md #14).
     cfg2 = load_config(str(prm / "llnl_slab_test.prm"))
     cfg2 = cfg2.replace(dt=stable_dt(cfg2))
     cps = (20, 60) if args.quick else (50, 200, 500)
-    rows += run_deck("llnl-transient", cfg2, cps)
+    rows += run_deck("llnl-transient", cfg2, cps, engines)
 
     if args.json:
         for r in rows:
             print(json.dumps(r))
     else:
-        hdr = f"{'deck':16s} {'steps':>6s} {'fast f32':>12s} {'pallas f32':>12s}"
+        keys = list(engines)
+        hdr = f"{'deck':16s} {'steps':>6s}" + "".join(f" {k:>12s}"
+                                                      for k in keys)
         print(hdr)
         print("-" * len(hdr))
         for r in rows:
-            print(f"{r['deck']:16s} {r['steps']:6d} "
-                  f"{r.get('fast_f32', float('nan')):12.3e} "
-                  f"{r.get('pallas_f32', float('nan')):12.3e}")
+            print(f"{r['deck']:16s} {r['steps']:6d}"
+                  + "".join(f" {r[k]:12.3e}" for k in keys))
 
 
 if __name__ == "__main__":

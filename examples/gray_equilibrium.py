@@ -17,7 +17,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
-import radiative_transfer_tpu as rt
+import radiative_transfer as rt
 
 
 def main():

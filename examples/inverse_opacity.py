@@ -11,7 +11,7 @@ Scenario: a "measured" steady flux profile was produced by an unknown
 opacity spectrum. Starting from the deck's nominal kappas, recover the
 true spectrum by gradient descent on the profile mismatch. The forward
 model is the same discrete scheme the CLI runs (models/transport.py);
-the adjoint is its exact transpose (radiative_transfer_tpu/adjoint.py).
+the adjoint is its exact transpose (radiative_transfer/adjoint.py).
 
     python examples/inverse_opacity.py [--groups 8] [--iters 400]
 """
@@ -25,9 +25,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax.numpy as jnp
 import numpy as np
 
-import radiative_transfer_tpu as rt
-from radiative_transfer_tpu import adjoint
-from radiative_transfer_tpu.models import transport
+import radiative_transfer as rt
+from radiative_transfer import adjoint
+from radiative_transfer.models import transport
 
 
 def main():

@@ -7,9 +7,9 @@ resolution at a stable Courant number, and runs the full production
 path: shape-aware engine auto-selection, periodic exact checkpoints,
 live balance diagnostics, and end-of-run conservation reporting.
 
-Works on a TPU (Pallas engines) or CPU (auto falls back to the XLA
-engine). Multi-chip: set a mesh via the CLI instead —
-    python -m radiative_transfer_tpu.cli prm/llnl_slab_test.prm \
+Works on a GPU (auto picks the fused sweep kernel) or the CPU (the XLA
+engine). Several devices: set a mesh via the CLI instead —
+    python -m radiative_transfer.cli prm/llnl_slab_test.prm \
         --engine auto --mesh 1x8 --checkpoint-dir ck/
 """
 
@@ -21,15 +21,15 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
-import radiative_transfer_tpu as rt
+import radiative_transfer as rt
 
 
 def main():
     import jax.numpy as jnp
 
-    from radiative_transfer_tpu import parallel
-    from radiative_transfer_tpu.models import transport
-    from radiative_transfer_tpu.utils import checkpoint as ckpt
+    from radiative_transfer import parallel
+    from radiative_transfer.models import transport
+    from radiative_transfer.utils import checkpoint as ckpt
 
     deck = os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), "prm", "llnl_slab_test.prm")

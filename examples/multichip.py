@@ -17,15 +17,15 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
-import radiative_transfer_tpu as rt
+import radiative_transfer as rt
 
 
 def main():
     import jax
     import jax.numpy as jnp
 
-    from radiative_transfer_tpu.ops.fast_sweep import FastEngine
-    from radiative_transfer_tpu.parallel import distributed, sharded_fast
+    from radiative_transfer.ops.fast_sweep import FastEngine
+    from radiative_transfer.parallel import distributed, sharded_fast
 
     info = distributed.initialize()
     print("processes:", info)
@@ -62,24 +62,17 @@ def main():
     print("multi-chip solve matches single-device")
 
     # The production f32 path: parallel.make_multichip_engine picks the
-    # fused-kernel halo-overlap engine when the workload's truncated-scan
-    # creep bound admits it (this one does: dx=1/256 at dt=1e-5), else
-    # the per-substep-exchange sharded Pallas engine. The f32 bar is the
+    # sharded XLA engine on a mesh of several devices. The f32 bar is the
     # documented drift class for correction-coupled multigroup decks
     # (docs/PERFORMANCE.md "f32 accuracy").
-    from radiative_transfer_tpu import parallel
+    from radiative_transfer import parallel
 
-    tables32, _, _ = rt.transport.build_tables(cfg, dtype=jnp.float32)
-    # platform="tpu": demonstrate the production TPU selection on this
-    # virtual CPU mesh (auto's off-TPU rule would pick the XLA engine,
-    # because interpret-mode Pallas loses there).
-    peng = parallel.make_multichip_engine(cfg, tables32, mesh,
-                                          platform="tpu")
+    peng = parallel.make_multichip_engine(cfg, tables, mesh)
     pends = np.asarray(peng.ends(peng.solve()))
     perr = np.abs(pends - single_ends).max() / scale
     print(f"{type(peng).__name__} (f32) vs f64 max rel diff: {perr:.2e}")
-    assert perr < 2e-3, "f32 multi-chip engine diverged"
-    print("f32 fused multi-chip engine matches at f32 accuracy")
+    assert perr < 2e-3, "f32 multi-device engine diverged"
+    print("f32 multi-device engine matches at f32 accuracy")
     return 0
 
 

@@ -15,9 +15,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
-import radiative_transfer_tpu as rt
-from radiative_transfer_tpu.ops.fast_sweep import FastEngine
-from radiative_transfer_tpu.utils import diagnostics, io as io_mod
+import radiative_transfer as rt
+from radiative_transfer.ops.fast_sweep import FastEngine
+from radiative_transfer.utils import diagnostics, io as io_mod
 
 
 def main():
@@ -52,7 +52,7 @@ def main():
     x = (np.arange(cfg.N) + 0.5) * cfg.dx
     io_mod.write_solution_csvs(outdir, result, x, np.asarray(grid.e_ave))
     try:
-        from radiative_transfer_tpu import plot as plot_mod
+        from radiative_transfer import plot as plot_mod
 
         plot_mod.plot_solution(plot_mod.read_solution(outdir), outdir)
         print(f"CSVs + figures in {os.path.abspath(outdir)}")

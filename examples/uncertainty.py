@@ -4,9 +4,9 @@
 The serial C++ reference runs one deck per process; propagating opacity
 uncertainty through it means shell-scripting N independent runs. Here
 the whole Monte-Carlo ensemble is ONE compiled XLA program
-(`radiative_transfer_tpu/ensemble.py`): `jax.vmap` stacks the member
+(`radiative_transfer/ensemble.py`): `jax.vmap` stacks the member
 solves along a batch axis that fuses into the solver's existing (M, G)
-lane batching, and on a multi-chip mesh the axis shards with zero
+batch, and on a multi-device mesh the axis shards with zero
 collectives (each member solves wholly on one device).
 
 Scenario: the group opacities carry log-normal uncertainty (e.g. from
@@ -30,9 +30,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import radiative_transfer_tpu as rt
-from radiative_transfer_tpu import adjoint, ensemble
-from radiative_transfer_tpu.models import transport
+import radiative_transfer as rt
+from radiative_transfer import adjoint, ensemble
+from radiative_transfer.models import transport
 
 
 def main():

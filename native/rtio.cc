@@ -1,10 +1,10 @@
-// rtio: native runtime I/O for radiative_transfer_tpu.
+// rtio: native runtime I/O for radiative_transfer.
 //
 // C++ implementation of the framework's host-side data path — the same
 // roles the reference implements natively (reference: src/param.cpp:5-66
 // key=value deck parsing, src/ParameterHandler.cpp:136-198 whitespace
 // table reads, src/main.cc:37-57 CSV dumps) — exposed through a flat C ABI
-// consumed from Python via ctypes (radiative_transfer_tpu/native.py).
+// consumed from Python via ctypes (radiative_transfer/native.py).
 //
 // Grammar notes (must match the Python fallback bit-for-bit):
 //  * a line is a comment iff its FIRST character is '#';

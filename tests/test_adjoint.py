@@ -15,9 +15,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from radiative_transfer_tpu import adjoint
-from radiative_transfer_tpu.config.config import Config
-from radiative_transfer_tpu.models import transport
+from radiative_transfer import adjoint
+from radiative_transfer.config.config import Config
+from radiative_transfer.models import transport
 
 
 def small_cfg(**kw) -> Config:

@@ -7,9 +7,9 @@ import pytest
 
 from conftest import deck_edit, reference_deck
 
-from radiative_transfer_tpu.config.config import load_config
-from radiative_transfer_tpu.models import transport
-from radiative_transfer_tpu.utils import checkpoint as ck
+from radiative_transfer.config.config import load_config
+from radiative_transfer.models import transport
+from radiative_transfer.utils import checkpoint as ck
 
 
 def _setup(deck="single_group.prm", **over):
@@ -69,7 +69,7 @@ def test_latest_checkpoint_ordering(tmp_path):
 
 
 def test_cli_checkpoint_resume(tmp_path):
-    from radiative_transfer_tpu import cli
+    from radiative_transfer import cli
 
     deck = reference_deck("single_group.prm")
     out1, out2 = str(tmp_path / "a"), str(tmp_path / "b")
@@ -92,7 +92,7 @@ def test_engine_checkpoint_resume_fast(tmp_path):
     checkpoints are portable to the general solver's State format."""
     import jax.numpy as jnp
 
-    from radiative_transfer_tpu.ops import fast_sweep
+    from radiative_transfer.ops import fast_sweep
 
     cfg = load_config(reference_deck("single_group.prm"), max_timesteps=8)
     tables, _, _ = transport.build_tables(cfg)
@@ -117,7 +117,7 @@ def test_engine_checkpoint_resume_fast(tmp_path):
 
 
 def test_cli_checkpoint_fast_engine(tmp_path):
-    from radiative_transfer_tpu import cli
+    from radiative_transfer import cli
 
     deck = reference_deck("single_group.prm")
     out = str(tmp_path / "o")
@@ -138,7 +138,7 @@ def _csv_equal(dir1, dir2, names=("phi.csv", "psi.csv", "F.csv")):
 def test_cli_checkpoint_sharded_engine(tmp_path):
     """--mesh with an engine path honours --checkpoint-dir (it used to
     silently skip checkpointing): resumed run == same-chunking run."""
-    from radiative_transfer_tpu import cli
+    from radiative_transfer import cli
 
     deck = reference_deck("single_group.prm")
     out1, out2 = str(tmp_path / "a"), str(tmp_path / "b")
@@ -160,7 +160,7 @@ def test_cli_checkpoint_sharded_engine(tmp_path):
 def test_cli_checkpoint_sharded_general(tmp_path):
     """--mesh on the general (f64 scan) path checkpoints through the
     mesh-bound solve_fn and resumes to the identical trajectory."""
-    from radiative_transfer_tpu import cli
+    from radiative_transfer import cli
 
     deck = reference_deck("single_group.prm")
     out1, out2 = str(tmp_path / "a"), str(tmp_path / "b")
@@ -179,12 +179,11 @@ def test_cli_checkpoint_sharded_general(tmp_path):
     _csv_equal(out1, out2)
 
 
-def test_cli_checkpoint_halo_engine(tmp_path):
-    """--engine halo (mesh 1x1 implied) honours --checkpoint-dir."""
-    from radiative_transfer_tpu import cli
+def test_cli_checkpoint_mesh_engine(tmp_path):
+    """The mesh engine (--engine auto --mesh 1x2: ShardedFastEngine)
+    honours --checkpoint-dir."""
+    from radiative_transfer import cli
 
-    # the halo engine needs the truncated-scan regime: raise N/X so the
-    # per-cell attenuation bounds carry influence within the block
     with open(reference_deck("single_group.prm")) as f:
         text = deck_edit(deck_edit(f.read(), "N=100", "N=1024"),
                          "X=1.", "X=10.24")
@@ -194,7 +193,8 @@ def test_cli_checkpoint_halo_engine(tmp_path):
     out = str(tmp_path / "o")
     ckdir = str(tmp_path / "ck")
     assert cli.main([deck, "--steps", "4", "--outdir", out,
-                     "--engine", "halo", "--dtype", "float32",
+                     "--engine", "auto", "--mesh", "1x2",
+                     "--dtype", "float32",
                      "--checkpoint-dir", ckdir,
                      "--checkpoint-every", "2"]) == 0
     assert ck.latest_checkpoint(ckdir).endswith("04.npz")

@@ -16,7 +16,7 @@ from conftest import deck_edit, reference_deck
 import numpy as np
 import pytest
 
-from radiative_transfer_tpu import cli
+from radiative_transfer import cli
 
 BAL_RE = re.compile(r"step\s+\d+: balance max=", re.M)
 
@@ -33,11 +33,11 @@ def _deck(tmp_path, steps=4, N=64):
 MODES = [
     (["--engine", "general"], 4),
     (["--engine", "fast"], 4),
-    (["--engine", "pallas", "--dtype", "float32"], 4),
+    (["--engine", "fast", "--dtype", "float32"], 4),
     (["--engine", "auto", "--dtype", "float32"], 4),
     (["--engine", "general", "--mesh", "1x2"], 4),
     (["--engine", "fast", "--mesh", "1x2"], 4),
-    (["--engine", "pallas", "--mesh", "1x2", "--dtype", "float32"], 4),
+    (["--engine", "auto", "--mesh", "1x2", "--dtype", "float64"], 4),
     (["--engine", "auto", "--mesh", "1x4", "--dtype", "float32"], 4),
 ]
 
@@ -72,9 +72,9 @@ def test_balance_every_matches_plain_run(tmp_path):
     deck = _deck(str(tmp_path), steps=4)
     a, b = tmp_path / "a", tmp_path / "b"
     with redirect_stdout(io.StringIO()):
-        assert cli.main([deck, "--outdir", str(a), "--engine", "pallas",
+        assert cli.main([deck, "--outdir", str(a), "--engine", "fast",
                          "--dtype", "float32"]) == 0
-        assert cli.main([deck, "--outdir", str(b), "--engine", "pallas",
+        assert cli.main([deck, "--outdir", str(b), "--engine", "fast",
                          "--dtype", "float32", "--balance-every", "1"]) == 0
     for f in ("phi.csv", "F.csv", "psi.csv"):
         np.testing.assert_array_equal(np.loadtxt(a / f), np.loadtxt(b / f))
@@ -87,15 +87,17 @@ def _ensemble_table(tmp_path, K=3, G=1):
     return path, rows
 
 
-@pytest.mark.parametrize("engine", ["general", "auto", "fast", "pallas"])
-def test_ensemble_kappa_writes_member_sets(tmp_path, engine):
+@pytest.mark.parametrize("engine,dtype", [
+    ("general", "float64"), ("auto", "float32"), ("fast", "float64"),
+    ("auto", "float64")])
+def test_ensemble_kappa_writes_member_sets(tmp_path, engine, dtype):
     """--ensemble-kappa runs every member in one program and writes one
     8-CSV set per member; each member matches its own single-deck run
     (the shell-script sweep a reference user would do, in one launch)."""
     deck = _deck(str(tmp_path), steps=3)
     table, rows = _ensemble_table(str(tmp_path))
     out = os.path.join(str(tmp_path), "ens")
-    extra = ["--dtype", "float32"] if engine in ("auto", "pallas") else []
+    extra = ["--dtype", dtype]
     buf = io.StringIO()
     with redirect_stdout(buf):
         rc = cli.main([deck, "--outdir", out, "--engine", engine,
@@ -117,7 +119,7 @@ def test_ensemble_kappa_writes_member_sets(tmp_path, engine):
                              engine, *extra]) == 0
         a = np.loadtxt(os.path.join(single, "phi.csv"))
         b = np.loadtxt(os.path.join(sub, "phi.csv"))
-        tol = 1e-12 if engine in ("general", "fast") else 5e-5
+        tol = 1e-12 if dtype == "float64" else 5e-5
         np.testing.assert_allclose(b, a, rtol=0,
                                    atol=tol * np.max(np.abs(a)))
 
@@ -131,7 +133,7 @@ def test_ensemble_kappa_refusals(tmp_path):
                 ["--balance-every", "1"],
                 ["--mesh", "1x2"],
                 ["--check"],
-                ["--engine", "halo"]):
+                ["--engine", "triton"]):
         with pytest.raises(SystemExit) as e:
             cli.main(base + bad)
         assert e.value.code == 2
@@ -201,41 +203,42 @@ def test_steady_refusals(tmp_path):
     assert e.value.code == 2
 
 
-def test_df_engine_writes_csvs_and_matches_general(tmp_path):
-    """--engine df produces the same 8 CSVs as the f64 general path to
-    double-float accuracy (the CLI wiring for ops/df_sweep.py)."""
+def test_auto_f64_engine_writes_csvs_and_matches_general(tmp_path):
+    """--engine auto at the default float64 (the XLA engine in native
+    f64) produces the same 8 CSVs as the general path to 1e-11."""
     deck = _deck(tmp_path, steps=4, N=64)
-    out_df = os.path.join(tmp_path, "df")
+    out_auto = os.path.join(tmp_path, "auto")
     out_gen = os.path.join(tmp_path, "gen")
     buf = io.StringIO()
     with redirect_stdout(buf):
-        assert cli.main([deck, "--outdir", out_df, "--engine", "df"]) == 0
+        assert cli.main([deck, "--outdir", out_auto, "--engine", "auto"]) == 0
         assert cli.main([deck, "--outdir", out_gen,
                          "--engine", "general"]) == 0
+    assert "auto engine: FastEngine (one device, float64)" in buf.getvalue()
     for name in ("phi.csv", "psi.csv", "left_ends.csv", "right_ends.csv"):
-        a = np.loadtxt(os.path.join(out_df, name), ndmin=2)
+        a = np.loadtxt(os.path.join(out_auto, name), ndmin=2)
         b = np.loadtxt(os.path.join(out_gen, name), ndmin=2)
         scale = np.abs(b).max() + 1e-300
         assert np.abs(a - b).max() / scale < 1e-11, name
 
 
-def test_df_engine_checkpoint_resume(tmp_path):
-    """Checkpoints written under --engine df resume exactly (the
-    prev_half_ends snapshot hook)."""
+def test_auto_f64_engine_checkpoint_resume(tmp_path):
+    """Checkpoints written under --engine auto (float64) resume
+    exactly."""
     deck = _deck(tmp_path, steps=8, N=64)
     ck = os.path.join(tmp_path, "ck")
     full = os.path.join(tmp_path, "full")
     resumed = os.path.join(tmp_path, "resumed")
     buf = io.StringIO()
     with redirect_stdout(buf):
-        assert cli.main([deck, "--outdir", full, "--engine", "df"]) == 0
+        assert cli.main([deck, "--outdir", full, "--engine", "auto"]) == 0
         # first run checkpoints every 3 steps, then dies at step 6
         assert cli.main([deck, "--outdir", os.path.join(tmp_path, "x"),
-                         "--engine", "df", "--steps", "6",
+                         "--engine", "auto", "--steps", "6",
                          "--checkpoint-dir", ck,
                          "--checkpoint-every", "3"]) == 0
         # resume completes the remaining steps from the checkpoint
-        assert cli.main([deck, "--outdir", resumed, "--engine", "df",
+        assert cli.main([deck, "--outdir", resumed, "--engine", "auto",
                          "--checkpoint-dir", ck,
                          "--checkpoint-every", "3"]) == 0
     assert "resumed from step" in buf.getvalue()
@@ -243,12 +246,14 @@ def test_df_engine_checkpoint_resume(tmp_path):
         a = np.loadtxt(os.path.join(resumed, name), ndmin=2)
         b = np.loadtxt(os.path.join(full, name), ndmin=2)
         scale = np.abs(b).max() + 1e-300
-        # checkpoints round the df pair through f64 arrays -> reseeding
-        # costs at most the double-float representation error
         assert np.abs(a - b).max() / scale < 1e-11, name
 
 
-# --engine df --mesh routing (round 5) is covered end-to-end by
-# tests/test_df_halo.py::test_cli_df_mesh (success + the infeasible
-# SystemExit guidance); the old single-chip refusal test it replaced
-# is obsolete.
+def test_triton_engine_needs_gpu(tmp_path):
+    """--engine triton on a machine without a GPU fails with a clear
+    error instead of interpreting or falling back."""
+    deck = _deck(tmp_path, steps=2, N=64)
+    with redirect_stdout(io.StringIO()):
+        with pytest.raises(RuntimeError, match="GPU kernel"):
+            cli.main([deck, "--outdir", str(tmp_path), "--engine", "triton",
+                      "--dtype", "float32"])

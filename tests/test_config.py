@@ -4,8 +4,8 @@ import numpy as np
 import pytest
 
 from conftest import reference_deck
-from radiative_transfer_tpu import load_config
-from radiative_transfer_tpu.config.config import PrmFile
+from radiative_transfer import load_config
+from radiative_transfer.config.config import PrmFile
 
 
 def test_defaults():

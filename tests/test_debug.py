@@ -7,9 +7,9 @@ import pytest
 
 from conftest import reference_deck
 
-from radiative_transfer_tpu.config.config import load_config
-from radiative_transfer_tpu.models import transport
-from radiative_transfer_tpu.utils import debug as dbg
+from radiative_transfer.config.config import load_config
+from radiative_transfer.models import transport
+from radiative_transfer.utils import debug as dbg
 
 
 def _setup(**over):
@@ -73,8 +73,8 @@ def test_cli_check_aborts_on_nan_injected_mid_run(tmp_path):
     """End-to-end --check: a NaN injected mid-run (via a poisoned
     checkpoint the run resumes from) aborts the CLI with the failing
     check NAMED, before any CSVs are written."""
-    from radiative_transfer_tpu import cli
-    from radiative_transfer_tpu.utils import checkpoint as ckpt
+    from radiative_transfer import cli
+    from radiative_transfer.utils import checkpoint as ckpt
 
     deck = reference_deck("single_group.prm")
     cfg = load_config(deck, max_timesteps=6)

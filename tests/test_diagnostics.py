@@ -7,11 +7,11 @@ import numpy as np
 
 from conftest import reference_deck
 
-from radiative_transfer_tpu import constants
-from radiative_transfer_tpu.config.config import load_config
-from radiative_transfer_tpu.models import transport
-from radiative_transfer_tpu.ops import correction as corr_mod
-from radiative_transfer_tpu.utils import diagnostics, profiling
+from radiative_transfer import constants
+from radiative_transfer.config.config import load_config
+from radiative_transfer.models import transport
+from radiative_transfer.ops import correction as corr_mod
+from radiative_transfer.utils import diagnostics, profiling
 
 
 def _setup(deck="multi_group_equilibrium.prm", **over):
@@ -111,7 +111,7 @@ def test_cli_metrics_json(tmp_path):
     import os
 
     from conftest import reference_deck
-    from radiative_transfer_tpu import cli
+    from radiative_transfer import cli
 
     out = str(tmp_path / "o")
     mpath = str(tmp_path / "metrics.json")

@@ -1,21 +1,16 @@
-"""Engine auto-selection: `auto` must never lose to a sibling engine.
+"""Engine selection (parallel.make_multichip_engine, cli --engine auto,
+ensemble.solve_ensemble_stacked, transport.run_problem(engine='auto')).
 
-The selection table (parallel.make_multichip_engine + cli --engine auto;
-measured basis in docs/PERFORMANCE.md):
+| topology              | dtype   | platform | engine selected           |
+|-----------------------|---------|----------|---------------------------|
+| no mesh / 1 device    | float32 | gpu      | TritonEngine (GPU kernel) |
+| no mesh / 1 device    | float32 | cpu      | FastEngine                |
+| no mesh / 1 device    | float64 | any      | FastEngine (native f64)   |
+| several devices       | any     | any      | ShardedFastEngine         |
 
-| topology                | workload            | engine selected      |
-|-------------------------|---------------------|----------------------|
-| no mesh / 1-device mesh | Bh >= 8             | plain PallasEngine   |
-| no mesh / 1-device mesh | Bh < 8, truncatable | packed rows (halo at |
-|                         |                     | a 1-device mesh)     |
-| multi-device mesh       | truncatable scan    | HaloPallasEngine     |
-| multi-device mesh       | untruncatable scan  | ShardedPallasEngine  |
-| any (f64 requested)     | any                 | fast XLA engine(s)   |
-
-Measured basis (docs/PERFORMANCE.md): at Bh >= 8 the plain engine wins
-(mesh machinery costs ~20%: 51.0 vs 63.6 G at the headline shape), but
-at tiny batches the packed-rows kernel WINS 1.66x (49.3 vs 29.7 G at
-Bh=4) — the selection is shape-aware.
+The platform comes from radiative_transfer.backend.platform(); tests
+pin it by monkeypatching that one helper. No default route ever runs a
+kernel in the Pallas interpreter.
 """
 
 import subprocess
@@ -25,19 +20,18 @@ import conftest  # noqa: F401
 from conftest import deck_edit, reference_deck
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from radiative_transfer_tpu import load_config, parallel
-from radiative_transfer_tpu.config.config import Config
-from radiative_transfer_tpu.models import transport
-from radiative_transfer_tpu.ops.pallas_sweep import PallasEngine
-from radiative_transfer_tpu.parallel.halo_pallas import (
-    HaloPallasEngine,
-    Mesh,
-)
-from radiative_transfer_tpu.parallel.sharded_pallas import (
-    ShardedPallasEngine,
+from radiative_transfer import backend, load_config, parallel
+from radiative_transfer.config.config import Config
+from radiative_transfer.models import transport
+from radiative_transfer.ops.fast_sweep import FastEngine
+from radiative_transfer.ops.triton_sweep import TritonEngine
+from radiative_transfer.parallel.sharded_fast import (
+    ShardedFastEngine,
+    make_mesh_1d,
 )
 
 
@@ -53,151 +47,102 @@ def _gray(N=1024, steps=4, M=4, G=1):
     )
 
 
-def _gray_big_bh(**kw):
-    """Bh = 8: the plain-engine side of the selection crossover."""
-    return _gray(M=16, **kw)
-
-
 @pytest.fixture(scope="module")
-def mesh1():
-    return Mesh(np.asarray(jax.devices()[:1]), ("x",))
-
-
-@pytest.fixture(scope="module")
-def mesh8():
+def meshes():
     assert len(jax.devices()) >= 8
-    return Mesh(np.asarray(jax.devices()[:8]), ("x",))
+    return {None: None, 1: make_mesh_1d(1), 8: make_mesh_1d(8)}
 
 
-def test_no_mesh_selects_plain_pallas_at_big_bh():
-    cfg = _gray_big_bh()          # Bh = 8: plain-engine side
-    tables, _, _ = transport.build_tables(cfg)
-    eng = parallel.make_multichip_engine(cfg, tables, None,
-                                         platform="tpu")
-    assert isinstance(eng, PallasEngine)
+@pytest.fixture
+def on_platform(monkeypatch):
+    def pin(name):
+        monkeypatch.setattr(backend, "platform", lambda: name)
+    return pin
 
 
-def test_no_mesh_selects_packed_at_tiny_bh():
-    cfg = _gray()                 # Bh = 2: packed-rows side
-    tables, _, _ = transport.build_tables(cfg)
-    eng = parallel.make_multichip_engine(cfg, tables, None,
-                                         platform="tpu")
-    assert isinstance(eng, HaloPallasEngine)
-    assert eng.Kx == 1
-
-
-def test_tiny_bh_untruncatable_falls_back_to_plain():
+@pytest.mark.parametrize("n_dev", [None, 1, 8])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("platform", ["cpu", "gpu"])
+def test_routing_table(meshes, on_platform, platform, dtype, n_dev):
+    on_platform(platform)
     cfg = _gray()
     tables, _, _ = transport.build_tables(cfg)
-    eng = parallel.make_multichip_engine(cfg, tables, None, scan_tol=0.0,
-                                         platform="tpu")
-    assert isinstance(eng, PallasEngine)
+    jdt = jnp.dtype(dtype)
+    eng = parallel.make_multichip_engine(cfg, tables, meshes[n_dev],
+                                         dtype=jdt)
+    if n_dev == 8:
+        want = ShardedFastEngine
+    elif platform == "gpu" and dtype == "float32":
+        want = TritonEngine
+    else:
+        want = FastEngine
+    assert type(eng) is want
+    assert not getattr(eng, "interpret", False)
+    got_dtype = eng.eng.dtype if want is ShardedFastEngine else eng.dtype
+    assert jnp.dtype(got_dtype) == (jnp.float32 if want is TritonEngine
+                                    else jdt)
 
 
-def test_one_device_mesh_selects_plain_pallas(mesh1):
-    cfg = _gray_big_bh()
-    tables, _, _ = transport.build_tables(cfg)
-    # Halo-only kwargs must be dropped for the plain engine, not raise.
-    eng = parallel.make_multichip_engine(cfg, tables, mesh1,
-                                         steps_per_launch=4,
-                                         platform="tpu")
-    assert isinstance(eng, PallasEngine)
+def test_unknown_platform_is_an_error(monkeypatch):
+    class Dev:
+        platform = "metal"
+
+    monkeypatch.setattr(jax, "devices", lambda *a: [Dev()])
+    with pytest.raises(RuntimeError, match="unsupported JAX platform"):
+        backend.platform()
+    with pytest.raises(RuntimeError, match="unsupported JAX platform"):
+        backend.require_gpu("x")
 
 
-def test_single_pin(mesh8):
+def test_backend_reports_cpu_here():
+    assert backend.platform() == "cpu"
+    with pytest.raises(RuntimeError, match="GPU kernel"):
+        backend.require_gpu("TritonEngine")
+
+
+def test_fast_pin(meshes):
     cfg = _gray()
     tables, _, _ = transport.build_tables(cfg)
-    eng = parallel.make_multichip_engine(cfg, tables, mesh8,
-                                         engine="single")
-    assert isinstance(eng, PallasEngine)
-
-
-def test_multi_device_truncatable_selects_halo(mesh8):
-    cfg = _gray()
-    tables, _, _ = transport.build_tables(cfg)
-    eng = parallel.make_multichip_engine(cfg, tables, mesh8, block=32,
-                                         platform="tpu")
-    assert isinstance(eng, HaloPallasEngine)
-
-
-def test_multi_device_untruncatable_selects_fused(mesh8):
-    # scan_tol=0 disables truncation -> the halo creep bound must reject
-    # and auto must fall back to the single-exchange fused-cycle engine
-    # for BDF2 (1 launch + 1 small all_gather per step vs the
-    # per-substep engine's 4+4, parallel/fused_exchange.py).
-    from radiative_transfer_tpu.parallel.fused_exchange import (
-        FusedExchangeEngine,
-    )
-
-    cfg = _gray()
-    tables, _, _ = transport.build_tables(cfg)
-    eng = parallel.make_multichip_engine(cfg, tables, mesh8, block=32,
-                                         scan_tol=0.0, platform="tpu")
-    assert isinstance(eng, FusedExchangeEngine)
-
-
-def test_multi_device_untruncatable_non_bdf2_selects_sharded(mesh8):
-    # BE stepping has no fused-cycle variant: the per-substep engine
-    # already runs one exchange per step there.
-    cfg = _gray().replace(ts_method=1)
-    tables, _, _ = transport.build_tables(cfg)
-    eng = parallel.make_multichip_engine(cfg, tables, mesh8, block=32,
-                                         scan_tol=0.0, platform="tpu")
-    assert isinstance(eng, ShardedPallasEngine)
-
-
-def test_cpu_platform_selects_fast_engines(mesh8):
-    """Off-TPU the Pallas kernels would run the interpreter (2-3x slower
-    than the XLA engine, benchmarks/results/suite_virtual.json) — auto
-    must pick the fast engines there."""
-    from radiative_transfer_tpu.ops.fast_sweep import FastEngine
-    from radiative_transfer_tpu.parallel.sharded_fast import (
-        ShardedFastEngine,
-    )
-
-    cfg = _gray()
-    tables, _, _ = transport.build_tables(cfg)
-    eng = parallel.make_multichip_engine(cfg, tables, None, platform="cpu")
-    assert isinstance(eng, FastEngine)
-    eng = parallel.make_multichip_engine(cfg, tables, mesh8,
-                                         platform="cpu", scan_tol=1e-10)
+    eng = parallel.make_multichip_engine(cfg, tables, meshes[8],
+                                         engine="fast", dtype=jnp.float64)
     assert isinstance(eng, ShardedFastEngine)
+    with pytest.raises(ValueError, match="unknown engine"):
+        parallel.make_multichip_engine(cfg, tables, None, engine="pallas")
 
 
-def test_auto_solution_matches_pallas(mesh1):
-    """auto at a 1-device mesh is exactly the plain engine's trajectory
-    (big Bh picks the plain engine itself)."""
-    cfg = _gray_big_bh(steps=3)
+def test_auto_solution_matches_fast(meshes):
+    """auto at a 1-device mesh is exactly the plain engine's trajectory."""
+    cfg = _gray(steps=3)
     tables, _, _ = transport.build_tables(cfg)
-    ref = PallasEngine(cfg, tables).solve()
-    eng = parallel.make_multichip_engine(cfg, tables, mesh1,
-                                         platform="tpu")
-    got = eng.solve()
+    ref = FastEngine(cfg, tables).solve()
+    got = parallel.make_multichip_engine(cfg, tables, meshes[1]).solve()
     np.testing.assert_array_equal(np.asarray(got.e0), np.asarray(ref.e0))
 
 
 def test_run_problem_engine_param():
     """transport.run_problem(engine=...) is the library-level entry to
-    the perf engines: same diagnostics, documented f32 drift bar."""
+    the perf engines: same diagnostics; float64 auto is the f64 engine."""
     cfg = load_config(reference_deck("single_group.prm"), max_timesteps=10)
     a = transport.run_problem(cfg)
     b = transport.run_problem(cfg, engine="auto")
     c = transport.run_problem(cfg, engine="fast")
+    d = transport.run_problem(cfg, engine="auto", dtype=jnp.float32)
     pa = np.asarray(a.phi)
-    assert np.abs(np.asarray(b.phi) - pa).max() / np.abs(pa).max() < 1e-5
+    np.testing.assert_allclose(np.asarray(b.phi), pa, rtol=1e-12)
     np.testing.assert_allclose(np.asarray(c.phi), pa, rtol=1e-12)
+    assert np.abs(np.asarray(d.phi) - pa).max() / np.abs(pa).max() < 1e-5
     with pytest.raises(ValueError, match="unknown engine"):
         transport.run_problem(cfg, engine="bogus")
 
 
 def test_cli_auto_mesh_f64_uses_fast_engine(tmp_path):
     """auto must honor an explicit f64 request on a mesh by selecting the
-    XLA engine (not noting the precision away and running f32)."""
+    sharded XLA engine at f64."""
     import io
     import os
     from contextlib import redirect_stdout
 
-    from radiative_transfer_tpu import cli
+    from radiative_transfer import cli
 
     text = open(reference_deck("single_group.prm")).read()
     text = deck_edit(text, "max_timesteps=1000", "max_timesteps=2")
@@ -208,43 +153,16 @@ def test_cli_auto_mesh_f64_uses_fast_engine(tmp_path):
         rc = cli.main([deck, "--outdir", str(tmp_path), "--engine", "auto",
                        "--mesh", "1x2", "--dtype", "float64"])
     assert rc == 0
-    assert "auto engine: ShardedFastEngine" in buf.getvalue()
+    assert "auto engine: ShardedFastEngine (mesh 1x2, float64)" \
+        in buf.getvalue()
 
 
-def test_auto_packed_solution_matches_pallas():
-    """The packed-rows selection at tiny Bh matches the plain engine to
-    kernel roundoff (FMA-grouping level, tests/test_halo_pallas.py)."""
-    cfg = _gray(steps=3)
-    tables, _, _ = transport.build_tables(cfg)
-    peng = PallasEngine(cfg, tables, block=32)
-    ref = np.asarray(peng.ends(peng.solve()))
-    eng = parallel.make_multichip_engine(cfg, tables, None,
-                                         platform="tpu")
-    assert isinstance(eng, HaloPallasEngine)
-    got = np.asarray(eng.ends(eng.solve()))
-    scale = np.abs(ref).max()
-    assert np.abs(got - ref).max() / scale < 2e-6
-
-
-@pytest.mark.parametrize("dtype,wants", [
-    # single_group.prm has Bh=1 -> the packed-rows selection for f32
-    # where feasible (interpret mode); on a real TPU its N=100 has no
-    # 128-multiple block, so the constructor refuses and auto falls back
-    # to the plain engine — both are correct selections. The subprocess
-    # inherits whatever platform is attached, so accept either.
-    ("float32", ("auto engine: HaloPallasEngine (single chip)",
-                 "auto engine: PallasEngine (single chip)",
-                 # CPU-only hosts: interpret mode loses, auto picks XLA
-                 "auto engine: FastEngine (single chip)")),
-    ("float64", ("auto engine: fast (single chip, float64, off-TPU)",
-                 # TPU hosts: the double-float kernel is the fast f64 path
-                 "auto engine: df (single chip, double-float kernel)")),
-])
-def test_cli_auto_single_chip(tmp_path, dtype, wants):
-    """cli --engine auto without a mesh runs the fastest single-chip
-    engine for the requested precision (no mesh machinery)."""
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_cli_auto_single_chip(tmp_path, dtype):
+    """cli --engine auto without a mesh runs the one-device engine for
+    the requested precision (the CPU here: the XLA engine)."""
     out = subprocess.run(
-        [sys.executable, "-m", "radiative_transfer_tpu.cli",
+        [sys.executable, "-m", "radiative_transfer.cli",
          reference_deck("single_group.prm"), "--steps", "2",
          "--engine", "auto", "--dtype", dtype,
          "--outdir", str(tmp_path)],
@@ -252,21 +170,39 @@ def test_cli_auto_single_chip(tmp_path, dtype, wants):
         env=None,
     )
     assert out.returncode == 0, out.stderr[-2000:]
-    assert any(w in out.stdout for w in wants), out.stdout[-2000:]
+    assert f"auto engine: FastEngine (one device, {dtype})" in out.stdout
     assert "wrote 8 CSVs" in out.stdout
 
 
-def test_indivisible_mesh_raises_clear_valueerror(mesh8):
-    """No mesh engine can shard N=100 over 8 contiguous spatial shards;
-    auto must surface a CLEAR ValueError (review finding: the engines
-    used `assert`, so the guidance vanished under python -O and the
-    auto fallback chain mixed exception types)."""
+def test_indivisible_mesh_raises_clear_valueerror(meshes):
+    """No chunking shards N=100 over 8 contiguous spatial shards; auto
+    must surface a clear ValueError (an assert would vanish under -O)."""
     cfg = _gray().replace(N=100)           # 100 % 8 != 0
     tables, _, _ = transport.build_tables(cfg)
-    with pytest.raises(ValueError, match="split evenly"):
-        parallel.make_multichip_engine(cfg, tables, mesh8, block=4,
-                                       scan_tol=0.0, platform="tpu")
-    with pytest.raises(ValueError, match="split evenly"):
-        parallel.make_multichip_engine(cfg, tables, mesh8, block=4,
-                                       scan_tol=0.0, platform="tpu",
-                                       engine="fused")
+    with pytest.raises(ValueError, match="splits evenly"):
+        parallel.make_multichip_engine(cfg, tables, meshes[8])
+
+
+def test_compile_cache_placement():
+    """Without JAX_COMPILATION_CACHE_DIR the package caches compiled
+    programs at a fixed git-ignored path in the checkout; with it set,
+    JAX's own setting is left alone."""
+    import os
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = ("import jax, radiative_transfer; "
+            "print(jax.config.jax_compilation_cache_dir)")
+    env = {k: v for k, v in os.environ.items()
+           if k != "JAX_COMPILATION_CACHE_DIR"}
+    env["JAX_PLATFORMS"] = "cpu"
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=repo,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip() == os.path.join(repo, ".jax_cache")
+    assert ".jax_cache/" in open(os.path.join(repo, ".gitignore")).read()
+
+    env["JAX_COMPILATION_CACHE_DIR"] = "/nonexistent/elsewhere"
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=repo,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip() == "/nonexistent/elsewhere"

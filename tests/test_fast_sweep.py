@@ -12,9 +12,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from radiative_transfer_tpu import load_config
-from radiative_transfer_tpu.models import transport
-from radiative_transfer_tpu.ops import fast_sweep
+from radiative_transfer import load_config
+from radiative_transfer.models import transport
+from radiative_transfer.ops import fast_sweep
 
 
 def _compare(cfg, num_steps, chunk=16, rtol=1e-12, atol=1e-13):

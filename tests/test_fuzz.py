@@ -8,9 +8,9 @@ import conftest  # noqa: F401
 
 import jax.numpy as jnp
 
-from radiative_transfer_tpu.config.config import Config
-from radiative_transfer_tpu.models import transport
-from radiative_transfer_tpu.ops import fast_sweep
+from radiative_transfer.config.config import Config
+from radiative_transfer.models import transport
+from radiative_transfer.ops import fast_sweep
 from oracle import Oracle
 
 
@@ -87,7 +87,7 @@ def test_config_validation_errors():
 def test_bdf2_symmetric_half_mode():
     """The corrected symmetric snapshot (opt-in): engines agree with each
     other and differ from the parity-quirk trajectory."""
-    from radiative_transfer_tpu.ops import pallas_sweep
+    from radiative_transfer.ops import triton_sweep
 
     base = Config(
         M=4, G=3, N=48, bc_left_indicator=1, bc_right_indicator=1,
@@ -110,7 +110,7 @@ def test_bdf2_symmetric_half_mode():
         np.asarray(feng.ends(fst)), e_sym, rtol=0,
         atol=1e-12 * np.abs(e_sym).max(),
     )
-    peng = pallas_sweep.PallasEngine(sym, tables, block=16)
+    peng = triton_sweep.TritonEngine(sym, tables, chunk=8, interpret=True)
     pst = peng.solve(num_steps=4)
     scale = np.abs(e_sym).max()
     assert np.abs(np.asarray(peng.ends(pst)) - e_sym).max() / scale < 1e-5

@@ -17,8 +17,8 @@ precision after 1000 steps.
 import numpy as np
 
 from conftest import reference_deck
-from radiative_transfer_tpu import load_config
-from radiative_transfer_tpu.models import transport
+from radiative_transfer import load_config
+from radiative_transfer.models import transport
 
 
 def test_gray_equilibrium_reference_criterion():

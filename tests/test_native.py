@@ -11,9 +11,9 @@ import pytest
 
 from conftest import reference_deck
 
-from radiative_transfer_tpu import native
-from radiative_transfer_tpu.config import config as config_mod
-from radiative_transfer_tpu.utils import io as io_mod
+from radiative_transfer import native
+from radiative_transfer.config import config as config_mod
+from radiative_transfer.utils import io as io_mod
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason="native librtio.so not built"

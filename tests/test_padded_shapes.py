@@ -19,9 +19,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from radiative_transfer_tpu import load_config
-from radiative_transfer_tpu.models import transport
-from radiative_transfer_tpu.ops import fast_sweep as fs
+from radiative_transfer import load_config
+from radiative_transfer.models import transport
+from radiative_transfer.ops import fast_sweep as fs
 
 
 def _general_ends(cfg, steps):
@@ -116,29 +116,32 @@ def test_prime_n_within_2x_of_pow2():
     assert t_prime < 3.0 * t_pow2, (t_prime, t_pow2)
 
 
-def test_auto_large_odd_n_falls_back_to_fast():
-    """Single-chip auto selection: a large odd N has no power-of-two
-    Pallas block — whole-N blocking would blow scoped VMEM, so auto must
-    route to the (padded, log-depth) XLA fast engine instead of handing
-    Mosaic an infeasible kernel."""
-    from radiative_transfer_tpu import parallel
+def test_auto_large_odd_n_falls_back_to_fast(monkeypatch):
+    """A large odd N has no power-of-two chunk: every one-device auto
+    route pads it (log-depth at any N) — the f64 XLA engine, and on a
+    GPU the f32 kernel, which inherits FastEngine's padded layout."""
+    from radiative_transfer import backend, parallel
+    from radiative_transfer.ops.triton_sweep import TritonEngine
 
     cfg = load_config(conftest.reference_deck("single_group.prm"),
                       M=32, N=100001, X=1000.01, max_timesteps=2)
     tables, _, _ = transport.build_tables(cfg)
-    eng = parallel.make_multichip_engine(cfg, tables, None, platform="tpu")
+    eng = parallel.make_multichip_engine(cfg, tables, None,
+                                         dtype=jnp.float64)
     assert isinstance(eng, fs.FastEngine)
+    assert eng.pad > 0 and eng.chunk >= 16
+    monkeypatch.setattr(backend, "platform", lambda: "gpu")
+    eng = parallel.make_multichip_engine(cfg, tables, None)
+    assert isinstance(eng, TritonEngine)
     assert eng.pad > 0 and eng.chunk >= 16
 
 
 def test_layout_engines_unpadded_on_reference_decks():
-    """Round-4 regression (review finding): engines that reuse
-    FastEngine for LAYOUT must never see a padded width — from_ends ->
-    solve on the stock N=100 / N=50 decks (whole-N Pallas block) used to
-    crash with a fori_loop carry shape mismatch when padding leaked in
-    through chunk == N."""
-    from radiative_transfer_tpu.ops.df_sweep import DFPallasEngine
-    from radiative_transfer_tpu.ops.pallas_sweep import PallasEngine
+    """from_ends -> solve round trip on the stock N=100 / N=50 decks
+    through the layout-reusing engines (padding must never leak into a
+    fori_loop carry shape): FastEngine pinned unpadded, and the GPU
+    kernel engine (interpreted here) at its own chunking."""
+    from radiative_transfer.ops.triton_sweep import TritonEngine
 
     cfg = load_config(conftest.reference_deck("single_group.prm"),
                       max_timesteps=2)
@@ -147,31 +150,14 @@ def test_layout_engines_unpadded_on_reference_decks():
     eng = fs.FastEngine(cfg, tables, dtype=jnp.float32,
                         chunk=cfg.N, pad=False)
     assert eng.pad == 0
-    peng = PallasEngine(cfg, tables)
-    st = peng.solve(num_steps=2)
-    st2 = peng.from_ends(peng.ends(st), peng.ends_pair(st.p0, st.p1),
-                         peng.ends_pair(st.h0, st.h1))
-    peng.solve(st2, num_steps=1)               # used to crash
-
-    cfg2 = load_config(conftest.reference_deck("llnl_slab_test.prm"),
-                       max_timesteps=1)
-    t2, _, _ = transport.build_tables(cfg2)
-    de = DFPallasEngine(cfg2, t2)
-    sd = de.solve(num_steps=1)
-    prev, half = de.prev_half_ends(sd)
-    de.solve(de.from_ends(de.ends(sd), prev, half), num_steps=1)
-
-
-def test_df_whole_n_feasibility_helper():
-    from radiative_transfer_tpu.config.config import Config
-    from radiative_transfer_tpu.ops.df_sweep import whole_n_feasible
-
-    def mk(N, M=32):
-        return Config(M=M, G=1, N=N, X=1.0, rho=1.0, kappa_grey=1.0,
-                      T=1.0, ts_method=3, dt=1e-6, max_timesteps=1,
-                      psi_source=tuple((1.0,) for _ in range(M)))
-
-    assert whole_n_feasible(mk(100))       # stock decks: small whole-N
-    assert whole_n_feasible(mk(50))
-    assert whole_n_feasible(mk(1 << 20))   # pow2: proper blocking
-    assert not whole_n_feasible(mk(100001))  # large odd N: VMEM-infeasible
+    for c, t in ((cfg, tables),
+                 (load_config(conftest.reference_deck("llnl_slab_test.prm"),
+                              max_timesteps=1), None)):
+        if t is None:
+            t, _, _ = transport.build_tables(c)
+        peng = TritonEngine(c, t, interpret=True)
+        st = peng.solve(num_steps=1)
+        st2 = peng.from_ends(peng.ends(st), peng.ends_pair(st.p0, st.p1),
+                             peng.ends_pair(st.h0, st.h1))
+        out = peng.solve(st2, num_steps=1)
+        assert out.e0.shape == st.e0.shape

@@ -1,11 +1,10 @@
-"""Pallas single-pass sweep kernels == XLA fast engine (interpret mode).
+"""Fused GPU sweep kernel (ops/triton_sweep, Pallas-Triton) == the f64
+XLA engine, with the kernel run in the Pallas interpreter on the CPU.
 
-Runs the Mosaic kernels through the Pallas interpreter on CPU, comparing
-against the XLA fast engine at the same float32 precision. Error metric is
-normalised by the per-array magnitude: the LLNL deck's optically-thick
-groups produce values spanning ~10 orders of magnitude and the engines'
-different reduction orders differ at f32 roundoff on the tiny entries
-(both are equally far from the float64 truth).
+Error metric is normalised by the per-array magnitude: the LLNL deck's
+optically-thick groups produce values spanning ~10 orders of magnitude,
+and a float32 engine is compared with float64 truth. The bar 1e-5 is the
+f32 drift bar of tests/test_f32_drift.py for these short runs.
 """
 
 import conftest  # noqa: F401
@@ -14,9 +13,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from radiative_transfer_tpu import load_config
-from radiative_transfer_tpu.models import transport
-from radiative_transfer_tpu.ops import fast_sweep, pallas_sweep
+from radiative_transfer import load_config
+from radiative_transfer.models import transport
+from radiative_transfer.ops import fast_sweep, triton_sweep
+
+F32_BAR = 1e-5
 
 
 def _relerr(got, ref):
@@ -24,24 +25,23 @@ def _relerr(got, ref):
     return np.max(np.abs(got - ref)) / scale
 
 
-def _compare(cfg, num_steps, block=16, tol=1e-5):
+def _compare(cfg, num_steps, chunk=8, tol=F32_BAR, **kw):
+    """Kernel (interpret) vs FastEngine float64 on ends, prev and half."""
     tables, _, _ = transport.build_tables(cfg)
-    eng, fst = fast_sweep.solve_fast(
-        cfg, tables, num_steps=num_steps, dtype=jnp.float32, chunk=block
-    )
-    peng = pallas_sweep.PallasEngine(cfg, tables, block=block)
-    pst = peng.solve(num_steps=num_steps)
-    assert peng.interpret, "tests must run the interpreter (CPU)"
-    assert _relerr(np.asarray(peng.ends(pst)), np.asarray(eng.ends(fst))) < tol
-    assert _relerr(
-        np.asarray(peng.ends_pair(pst.p0, pst.p1)),
-        np.asarray(eng.ends_pair(fst.p0, fst.p1)),
-    ) < tol
+    ref = fast_sweep.FastEngine(cfg, tables, dtype=jnp.float64, chunk=chunk)
+    rst = ref.solve(num_steps=num_steps)
+    eng = triton_sweep.TritonEngine(cfg, tables, chunk=chunk,
+                                    interpret=True, **kw)
+    st = eng.solve(num_steps=num_steps)
+    pairs = [("e", (st.e0, st.e1), (rst.e0, rst.e1)),
+             ("p", (st.p0, st.p1), (rst.p0, rst.p1))]
     if cfg.ts_method == 3:
-        assert _relerr(
-            np.asarray(peng.ends_pair(pst.h0, pst.h1)),
-            np.asarray(eng.ends_pair(fst.h0, fst.h1)),
-        ) < tol
+        pairs.append(("h", (st.h0, st.h1), (rst.h0, rst.h1)))
+    for name, got, want in pairs:
+        err = _relerr(np.asarray(eng.ends_pair(*got)),
+                      np.asarray(ref.ends_pair(*want)))
+        assert err < tol, (name, err)
+    return eng
 
 
 @pytest.mark.parametrize("ts_method", [1, 2, 3])
@@ -65,148 +65,146 @@ def test_llnl_deck():
     cfg = load_config(
         conftest.reference_deck("llnl_slab_test.prm"), N=32, max_timesteps=2
     )
-    _compare(cfg, 2)
+    _compare(cfg, 2, tol=1e-4)
 
 
+@pytest.mark.parametrize("scan_tol", [1e-10, 0.0])
 @pytest.mark.parametrize("bc_left,bc_right", [(0, 0), (1, 1), (2, 0), (2, 1)])
-def test_bc_combinations(bc_left, bc_right):
+@pytest.mark.parametrize("ts_method", [1, 2, 3])
+def test_bc_combinations(ts_method, bc_left, bc_right, scan_tol):
+    """Every integrator x boundary pair, through both regimes: the
+    look-back (truncated) launch and the exact two-pass scan."""
     cfg = load_config(
         conftest.reference_deck("single_group.prm"),
-        M=8, N=64, ts_method=3, max_timesteps=2,
+        M=4, N=64, ts_method=ts_method, max_timesteps=2,
         bc_left_indicator=bc_left, bc_right_indicator=bc_right,
-        psi_source=tuple((float(i + 1),) for i in range(8)),
+        psi_source=tuple((float(i + 1),) for i in range(4)),
     )
-    _compare(cfg, 2)
+    eng = _compare(cfg, 2, scan_tol=scan_tol)
+    assert all(h == 0 for h in eng.H.values()) == (scan_tol == 0.0)
 
 
-def test_multi_step_fusion_matches_single_steps():
-    """K fused timesteps per launch == K separate step() calls (bitwise:
-    identical op order per block, only the HBM round-trips differ)."""
+@pytest.mark.parametrize("refl", [True, False])
+@pytest.mark.parametrize("N", [61, 63, 67, 100])
+def test_padded_n(N, refl):
+    """N with no power-of-two chunk: pad cells sit sweep-downstream and
+    the reflective outflow is read at the last real cell."""
+    cfg = load_config(
+        conftest.reference_deck("single_group.prm"), N=N, max_timesteps=2,
+        bc_left_indicator=2 if refl else 1,
+    )
+    eng = _compare(cfg, 2, chunk=16)
+    if N != 100:
+        assert eng.pad > 0
+
+
+@pytest.mark.parametrize("deck,overrides,grid", [
+    ("single_group.prm", dict(M=4, N=64), (1, 1)),
+    ("single_group.prm", dict(M=16, N=2048, X=20.48), (4, 2)),
+    ("llnl_slab_test.prm", dict(N=48), (2, 2)),
+    ("llnl_slab_test.prm", dict(N=200), (8, 2)),
+])
+def test_block_tiles(deck, overrides, grid):
+    """One tile, several full tiles, and masked partial tiles on both
+    axes (248 LLNL rows, chunk-column counts off the power-of-two tile)
+    all give the single-tile answer."""
+    cfg = load_config(conftest.reference_deck(deck), max_timesteps=2,
+                      **overrides)
+    eng = _compare(cfg, 2, tol=1e-4)
+    RT = eng._rows_tile(eng.R)
+    assert (-(-eng.R // RT), -(-eng.nc // eng.CT)) == grid
+
+
+@pytest.mark.parametrize("chunk", [4, 8, 16, 32])
+def test_halo_edges(chunk):
+    """Look-back length H against the chunk: H < chunk, H == chunk, and
+    H > chunk (which switches that kind to the two-pass scan)."""
     cfg = load_config(conftest.reference_deck("single_group.prm"),
-                      max_timesteps=6, N=64)
+                      N=128, max_timesteps=2)
+    eng = _compare(cfg, 2, chunk=chunk)
     tables, _, _ = transport.build_tables(cfg)
-    eng = pallas_sweep.PallasEngine(cfg, tables, block=16)
-
-    st_loop = eng.init_state()
-    for _ in range(6):
-        st_loop = eng.step(st_loop)
-
-    st_fused = eng.multi_step(eng.init_state(), 6)
-    np.testing.assert_array_equal(
-        np.asarray(st_fused.e0), np.asarray(st_loop.e0)
-    )
-    np.testing.assert_array_equal(
-        np.asarray(st_fused.e1), np.asarray(st_loop.e1)
-    )
-    np.testing.assert_array_equal(
-        np.asarray(st_fused.h1), np.asarray(st_loop.h1)
-    )
-
-    # and through solve()'s mixed body+tail path (K=4 then tail=2)
-    st_solve = eng.solve(num_steps=6, steps_per_launch=4)
-    np.testing.assert_array_equal(
-        np.asarray(st_solve.e0), np.asarray(st_loop.e0)
-    )
+    for kind, kc in fast_sweep.FastEngine(cfg, tables).kcs.items():
+        H = triton_sweep.lookback_cells(float(np.max(kc.a)), 1e-10)
+        assert eng.H[kind] == (H if H <= eng.chunk else 0)
 
 
-@pytest.mark.parametrize("ts_method", [1, 2])
-def test_multi_step_fusion_be_cn(ts_method):
-    """K fused BE/CN timesteps per launch == K separate step() calls."""
-    cfg = load_config(conftest.reference_deck("single_group.prm"),
-                      max_timesteps=6, N=64, ts_method=ts_method)
-    tables, _, _ = transport.build_tables(cfg)
-    eng = pallas_sweep.PallasEngine(cfg, tables, block=16)
-
-    st_loop = eng.init_state()
-    for _ in range(6):
-        st_loop = eng.step(st_loop)
-    st_fused = eng.multi_step(eng.init_state(), 6)
-    np.testing.assert_array_equal(
-        np.asarray(st_fused.e0), np.asarray(st_loop.e0)
-    )
-    np.testing.assert_array_equal(
-        np.asarray(st_fused.e1), np.asarray(st_loop.e1)
-    )
-    np.testing.assert_array_equal(
-        np.asarray(st_fused.p1), np.asarray(st_loop.p1)
-    )
-
-
-# -- accuracy-bounded scan truncation (ops/pallas_sweep._scan_npass) ---------
+# -- accuracy-bounded look-back (ops/triton_sweep.lookback_cells) -----------
 
 def test_scan_npass_bound():
-    """The pass-count bound: tol=0 disables truncation; a=0 needs no
-    passes; a -> 1 needs all; count is monotone in a and in 1/tol."""
-    blk = 4096
-    full = len(pallas_sweep._scan_strides(blk))
-    assert pallas_sweep._scan_npass(0.5, blk, 0.0) == full
-    assert pallas_sweep._scan_npass(0.0, blk, 1e-10) == 0
-    assert pallas_sweep._scan_npass(1.0 - 1e-15, blk, 1e-10) == full
-    n_loose = pallas_sweep._scan_npass(0.3, blk, 1e-6)
-    n_tight = pallas_sweep._scan_npass(0.3, blk, 1e-12)
-    assert n_loose <= n_tight < full
-    assert (pallas_sweep._scan_npass(0.1, blk, 1e-10)
-            <= pallas_sweep._scan_npass(0.9, blk, 1e-10))
-    # the bound itself: after k passes the neglected tail is
-    # a^(2^k)/(1-a) — verify directly for a mid-range a
+    """The look-back bound: tol=0 disables truncation; a=0 needs one
+    cell; a -> 1 cannot be truncated; H is monotone in a and in 1/tol."""
+    lb = triton_sweep.lookback_cells
+    assert lb(0.5, 0.0) == 0
+    assert lb(0.0, 1e-10) == 1
+    assert lb(1.0 - 1e-15, 1e-10) == 0
+    assert lb(float("nan"), 1e-10) == 0
+    assert lb(0.3, 1e-6) <= lb(0.3, 1e-12)
+    assert lb(0.1, 1e-10) <= lb(0.9, 1e-10)
     a, tol = 0.6, 1e-10
-    k = pallas_sweep._scan_npass(a, blk, tol)
-    assert a ** (1 << k) / (1 - a) < tol
-    if k > 0:
-        assert a ** (1 << (k - 1)) / (1 - a) >= tol
+    H = lb(a, tol)
+    assert a ** H / (1 - a) < tol
+    assert a ** (H // 2) / (1 - a) >= tol
 
 
 def test_scan_truncation_accuracy():
-    """Default scan_tol vs the full scan: differences bounded far below
-    the engines' f32 drift floor, on a deck sized so truncation actually
-    removes passes."""
+    """Default scan_tol vs the exact two-pass scan: differences bounded
+    far below the f32 drift floor, on a deck where truncation applies."""
     cfg = load_config(conftest.reference_deck("single_group.prm"),
-                      max_timesteps=12, N=512, dt=2e-6)
+                      max_timesteps=6, N=256, dt=2e-6)
     tables, _, _ = transport.build_tables(cfg)
-    eng_t = pallas_sweep.PallasEngine(cfg, tables)
-    eng_f = pallas_sweep.PallasEngine(cfg, tables, scan_tol=0.0)
-    full = len(pallas_sweep._scan_strides(eng_t.block))
-    assert max(eng_t.scan_npass.values()) < full, (
-        f"deck does not exercise truncation: {eng_t.scan_npass}"
-    )
-    st_t = eng_t.solve(eng_t.init_state(), 12)
-    st_f = eng_f.solve(eng_f.init_state(), 12)
-    a = np.asarray(eng_f.ends(st_f))
-    b = np.asarray(eng_t.ends(st_t))
+    eng_t = triton_sweep.TritonEngine(cfg, tables, interpret=True)
+    eng_f = triton_sweep.TritonEngine(cfg, tables, scan_tol=0.0,
+                                      interpret=True)
+    assert all(h > 0 for h in eng_t.H.values()), eng_t.H
+    a = np.asarray(eng_f.ends(eng_f.solve(num_steps=6)))
+    b = np.asarray(eng_t.ends(eng_t.solve(num_steps=6)))
     rel = np.max(np.abs(a - b)) / np.max(np.abs(a))
-    assert rel < 1e-7, rel
+    assert rel < 1e-6, rel
 
 
 def test_scan_npass_llnl_keeps_more_passes():
     """Optically-thin LLNL groups have carry multipliers near 1 at the
-    shipped dt, so the truncation keeps (nearly) the full scan there,
-    while the gray deck truncates aggressively."""
+    shipped dt, so no look-back can be truncated (two-pass scan), while
+    the gray deck truncates to a few cells."""
     cfg_g = load_config(conftest.reference_deck("single_group.prm"))
     cfg_l = load_config(conftest.reference_deck("llnl_slab_test.prm"))
     tg, _, _ = transport.build_tables(cfg_g)
     tl, _, _ = transport.build_tables(cfg_l)
-    eg = pallas_sweep.PallasEngine(cfg_g, tg)
-    el = pallas_sweep.PallasEngine(cfg_l, tl)
-    full_l = len(pallas_sweep._scan_strides(el.block))
-    assert max(el.scan_npass.values()) == full_l
-    assert max(eg.scan_npass.values()) < full_l
+    eg = triton_sweep.TritonEngine(cfg_g, tg, interpret=True)
+    el = triton_sweep.TritonEngine(cfg_l, tl, interpret=True)
+    assert max(el.H.values()) == 0
+    assert 0 < max(eg.H.values()) <= eg.chunk
 
 
 def test_block_autotune_and_pinning():
-    """Auto mode targets the measured-best BDF2 fusion regime
-    (Bh*block = 2^17 with K=4 steps/launch, docs/PERFORMANCE.md); an
-    explicit block= is pinned verbatim so callers and tests control the
-    inter-block decomposition."""
-    from conftest import reference_deck
-
-    cfg = load_config(reference_deck("single_group.prm"),
-                      M=32, N=1 << 14, X=1.0, max_timesteps=2)  # Bh=16
+    """The tile covers 512 lanes with at most 128 consecutive chunk
+    columns; rows shrink to the launch's row count; chunk is pinned
+    verbatim."""
+    cfg = load_config(conftest.reference_deck("single_group.prm"),
+                      M=32, N=1 << 12, X=1.0, max_timesteps=2)  # Bh=16
     tables, _, _ = transport.build_tables(cfg)
+    eng = triton_sweep.TritonEngine(cfg, tables, interpret=True)
+    assert eng.chunk == 32 and eng.nc == 128 and eng.CT == 128
+    assert eng._rows_tile(16) == 4
+    assert eng._rows_tile(1) == 1
+    pinned = triton_sweep.TritonEngine(cfg, tables, chunk=256,
+                                       interpret=True)
+    assert pinned.chunk == 256 and pinned.nc == 16 and pinned.CT == 16
+    assert pinned._rows_tile(32) == 32 and pinned._rows_tile(16) == 16
 
-    auto = pallas_sweep.PallasEngine(cfg, tables)
-    assert auto.Bh * auto.block == 1 << 17
-    assert auto.max_steps_per_launch() == 4
 
-    pinned = pallas_sweep.PallasEngine(cfg, tables, block=2048)
-    assert pinned.block == 2048
-    assert pinned.max_steps_per_launch() == 8  # 2^15 is the 2^16 regime
+def test_needs_gpu_unless_interpreted():
+    """Asking for the GPU kernel on a machine without a GPU is an error,
+    never a silent interpreter."""
+    cfg = load_config(conftest.reference_deck("single_group.prm"), N=32)
+    tables, _, _ = transport.build_tables(cfg)
+    with pytest.raises(RuntimeError, match="GPU"):
+        triton_sweep.TritonEngine(cfg, tables)
+
+
+def test_rejects_traced_coefficients():
+    cfg = load_config(conftest.reference_deck("single_group.prm"), N=32)
+    tables, _, _ = transport.build_tables(cfg)
+    eng = triton_sweep.TritonEngine(cfg, tables, interpret=True)
+    with pytest.raises(ValueError, match="host"):
+        eng.substep(fast_sweep.BE, eng.init_state(), kc=eng.kcs[1])

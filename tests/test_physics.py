@@ -9,12 +9,12 @@ import numpy as np
 import pytest
 
 from conftest import reference_deck
-from radiative_transfer_tpu import constants, load_config
-from radiative_transfer_tpu.ops import correction as corr_mod
-from radiative_transfer_tpu.ops import planck
-from radiative_transfer_tpu.ops.groups import build_group_grid, generate_group_edges
-from radiative_transfer_tpu.ops.quadrature import gauss_legendre
-from radiative_transfer_tpu.models import transport
+from radiative_transfer import constants, load_config
+from radiative_transfer.ops import correction as corr_mod
+from radiative_transfer.ops import planck
+from radiative_transfer.ops.groups import build_group_grid, generate_group_edges
+from radiative_transfer.ops.quadrature import gauss_legendre
+from radiative_transfer.models import transport
 
 TOL = constants.VALIDATION_TOLERANCE
 

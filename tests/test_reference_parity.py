@@ -84,9 +84,9 @@ def _run_reference(binary, deck_path, workdir):
 def _run_ours(deck_path, outdir):
     import jax.numpy as jnp
 
-    from radiative_transfer_tpu.config.config import load_config
-    from radiative_transfer_tpu.models import transport
-    from radiative_transfer_tpu.utils import io as io_mod
+    from radiative_transfer.config.config import load_config
+    from radiative_transfer.models import transport
+    from radiative_transfer.utils import io as io_mod
 
     cfg = load_config(deck_path)
     result = transport.run_problem(cfg, dtype=jnp.float64)
@@ -181,8 +181,8 @@ def test_input_echo_matches_reference_binary(transfer_binary, tmp_path,
     import io
     from contextlib import redirect_stdout
 
-    from radiative_transfer_tpu.cli import _echo_inputs
-    from radiative_transfer_tpu.config.config import load_config
+    from radiative_transfer.cli import _echo_inputs
+    from radiative_transfer.config.config import load_config
 
     cfg = load_config(deck_path)
     buf = io.StringIO()
@@ -198,7 +198,7 @@ def test_input_echo_matches_reference_binary(transfer_binary, tmp_path,
 
     # The Solver-construction quadrature + group tables
     # (solver.cpp:80-87, 107-122), byte-exact after rstrip.
-    from radiative_transfer_tpu.cli import _echo_solver_tables
+    from radiative_transfer.cli import _echo_solver_tables
 
     buf2 = io.StringIO()
     with redirect_stdout(buf2):
@@ -219,7 +219,7 @@ def test_input_echo_matches_reference_binary(transfer_binary, tmp_path,
     # quantity, so it gets an absolute floor).
     import jax.numpy as jnp
 
-    from radiative_transfer_tpu.models import transport
+    from radiative_transfer.models import transport
 
     ref_bal = [ln for ln in res.stdout.splitlines()
                if ln.startswith(("sources:", "sinks:", "balance at"))]
@@ -241,17 +241,18 @@ def test_input_echo_matches_reference_binary(transfer_binary, tmp_path,
 
 
 def _run_ours_pallas(deck_path, outdir):
-    """Same deck through the f32 Pallas engine (diagnostics in f64)."""
+    """Same deck through the f32 Pallas-Triton GPU kernel, run in the
+    Pallas interpreter here (diagnostics in f64)."""
     import jax.numpy as jnp
 
-    from radiative_transfer_tpu.config.config import load_config
-    from radiative_transfer_tpu.models import transport
-    from radiative_transfer_tpu.ops.pallas_sweep import PallasEngine
-    from radiative_transfer_tpu.utils import io as io_mod
+    from radiative_transfer.config.config import load_config
+    from radiative_transfer.models import transport
+    from radiative_transfer.ops.triton_sweep import TritonEngine
+    from radiative_transfer.utils import io as io_mod
 
     cfg = load_config(deck_path)
     tables, grid, _ = transport.build_tables(cfg, dtype=jnp.float64)
-    eng = PallasEngine(cfg, tables)
+    eng = TritonEngine(cfg, tables, interpret=True)
     result = transport.result_from_ends(cfg, tables, eng.ends(eng.solve()))
     x = (np.arange(cfg.N) + 0.5) * cfg.dx
     io_mod.write_solution_csvs(outdir, result, x, np.asarray(grid.e_ave))
@@ -260,7 +261,7 @@ def _run_ours_pallas(deck_path, outdir):
 
 def test_gray_pallas_f32_matches_reference_binary(transfer_binary, tmp_path):
     """GOLDEN parity for the f32 perf engine itself (not just via the
-    engine-equivalence chain): the Pallas engine's CSVs vs the reference
+    engine-equivalence chain): the GPU kernel's CSVs vs the reference
     binary at the documented gray f32 drift bar (~1e-6 vs f64 at 100
     steps, docs/PERFORMANCE.md) plus the binary's 6-digit print floor."""
     deck_path = _deck_with_steps(
@@ -284,23 +285,23 @@ def test_gray_pallas_f32_matches_reference_binary(transfer_binary, tmp_path):
     assert np.abs(F - Fref).max() / phi_scale < 5e-5
 
 
-def _run_ours_multichip(deck_path, outdir, engine):
-    """The deck through a MULTI-chip engine on the virtual 8-device mesh
-    (1-D spatial decomposition), diagnostics in f64."""
+def _run_ours_multichip(deck_path, outdir, dtype):
+    """The deck through the multi-device engine on the virtual 8-device
+    mesh (1-D spatial decomposition) at ``dtype``, diagnostics in f64."""
     import jax
     import jax.numpy as jnp
 
-    from radiative_transfer_tpu.config.config import load_config
-    from radiative_transfer_tpu.models import transport
-    from radiative_transfer_tpu.parallel import make_multichip_engine
-    from radiative_transfer_tpu.parallel.halo_pallas import Mesh
-    from radiative_transfer_tpu.utils import io as io_mod
+    from radiative_transfer.config.config import load_config
+    from radiative_transfer.models import transport
+    from radiative_transfer.parallel import make_multichip_engine
+    from radiative_transfer.parallel.sharded_fast import make_mesh_1d
+    from radiative_transfer.utils import io as io_mod
 
     assert len(jax.devices()) >= 8
-    mesh = Mesh(np.asarray(jax.devices()[:8]), ("x",))
+    mesh = make_mesh_1d(8)
     cfg = load_config(deck_path)
     tables, grid, _ = transport.build_tables(cfg, dtype=jnp.float64)
-    eng = make_multichip_engine(cfg, tables, mesh, engine=engine, block=32)
+    eng = make_multichip_engine(cfg, tables, mesh, dtype=jnp.dtype(dtype))
     ends = jnp.asarray(eng.ends(eng.solve()), jnp.float64)
     result = transport.result_from_ends(cfg, tables, ends)
     x = (np.arange(cfg.N) + 0.5) * cfg.dx
@@ -308,16 +309,15 @@ def _run_ours_multichip(deck_path, outdir, engine):
     return outdir
 
 
-@pytest.mark.parametrize("engine", ["halo", "pallas"])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
 def test_gray_multichip_matches_reference_binary(transfer_binary, tmp_path,
-                                                 engine):
-    """DIRECT golden parity for the multi-chip engines (VERDICT r2 #8):
-    the virtual-8-mesh halo-overlap and per-substep-exchange engines
-    straight against the reference binary's CSVs — no equivalence chain.
-    The gray deck is widened to N=1024 at the same dx (the halo creep
-    bound needs power-of-two per-shard blocks; the binary runs the
-    identical widened deck). Tolerance = the f32 engine drift bar of
-    test_gray_pallas_f32_matches_reference_binary."""
+                                                 dtype):
+    """DIRECT golden parity for the multi-device engine: the virtual-8-
+    mesh ShardedFastEngine at f32 and f64 straight against the reference
+    binary's CSVs — no equivalence chain. The gray deck is widened to
+    N=1024 at the same dx (power-of-two per-shard chunks; the binary
+    runs the identical widened deck). Tolerance = the f32 engine drift
+    bar of test_gray_pallas_f32_matches_reference_binary."""
     deck_path = _deck_with_steps(
         reference_deck("single_group.prm"), 100, str(tmp_path))
     text = open(deck_path).read()
@@ -326,7 +326,7 @@ def test_gray_multichip_matches_reference_binary(transfer_binary, tmp_path,
     open(deck_path, "w").write(text)
 
     refdir = _run_reference(transfer_binary, deck_path, str(tmp_path))
-    ourdir = _run_ours_multichip(deck_path, str(tmp_path / "ours"), engine)
+    ourdir = _run_ours_multichip(deck_path, str(tmp_path / "ours"), dtype)
     for name in FIELDS:
         if name == "F":
             continue
@@ -343,9 +343,9 @@ def test_gray_multichip_matches_reference_binary(transfer_binary, tmp_path,
 
 def test_be_and_cn_match_reference_binary(transfer_binary, tmp_path):
     """The pure BE and CN integrators, via modified decks — through the
-    general f64 engine AND directly through the f32 Pallas engine (its
-    BE/CN multi-step kernels get their own binary-parity link, not just
-    the engine-equivalence chain)."""
+    general f64 engine AND directly through the f32 GPU kernel (its BE
+    and CN sub-steps get their own binary-parity link, not just the
+    engine-equivalence chain)."""
     base = open(reference_deck("multi_group_equilibrium.prm")).read()
     for ts in (1, 2):
         work = tmp_path / f"ts{ts}"

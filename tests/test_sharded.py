@@ -12,9 +12,9 @@ import jax
 import numpy as np
 import pytest
 
-from radiative_transfer_tpu import load_config
-from radiative_transfer_tpu.models import transport
-from radiative_transfer_tpu.parallel import sharded
+from radiative_transfer import load_config
+from radiative_transfer.models import transport
+from radiative_transfer.parallel import sharded
 
 
 def _run_pair(cfg, mesh, num_steps):

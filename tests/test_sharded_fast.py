@@ -8,10 +8,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from radiative_transfer_tpu import load_config
-from radiative_transfer_tpu.models import transport
-from radiative_transfer_tpu.ops import fast_sweep
-from radiative_transfer_tpu.parallel import sharded_fast
+from radiative_transfer import load_config
+from radiative_transfer.models import transport
+from radiative_transfer.ops import fast_sweep
+from radiative_transfer.parallel import sharded_fast
 
 
 @pytest.fixture(scope="module")
@@ -130,17 +130,17 @@ def test_awkward_N_chunk_autopick(mesh2x4):
 
     import jax
 
-    from radiative_transfer_tpu.models import transport as tr
+    from radiative_transfer.models import transport as tr
 
     tables, _, _ = tr.build_tables(cfg)
-    with pytest.raises(AssertionError, match="spatial shards"):
+    with pytest.raises(ValueError, match="spatial shards"):
         sharded_fast.ShardedFastEngine(
             cfg, tables, sharded_fast.make_mesh_1d(8), dtype=jnp.float64
         )
 
 
 def test_cli_mesh_flag(tmp_path):
-    from radiative_transfer_tpu import cli
+    from radiative_transfer import cli
 
     deck = reference_deck("multi_group_equilibrium.prm")
     for engine, sub in (("general", "a"), ("fast", "b")):

@@ -25,11 +25,11 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from radiative_transfer_tpu import load_config
-from radiative_transfer_tpu.models import transport
-from radiative_transfer_tpu.ops import fast_sweep as fs
-from radiative_transfer_tpu.parallel import sharded
-from radiative_transfer_tpu.parallel.sharded_fast import (
+from radiative_transfer import load_config
+from radiative_transfer.models import transport
+from radiative_transfer.ops import fast_sweep as fs
+from radiative_transfer.parallel import sharded
+from radiative_transfer.parallel.sharded_fast import (
     ShardedFastEngine, make_mesh_1d,
 )
 

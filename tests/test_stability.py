@@ -21,9 +21,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from radiative_transfer_tpu.config.config import Config
-from radiative_transfer_tpu.models import transport
-from radiative_transfer_tpu.ops import fast_sweep
+from radiative_transfer.config.config import Config
+from radiative_transfer.models import transport
+from radiative_transfer.ops import fast_sweep
 
 
 def _max_after(ts_method: int, courant: float, steps: int = 512,

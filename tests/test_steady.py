@@ -1,4 +1,4 @@
-"""Direct steady-state solves (radiative_transfer_tpu/steady.py).
+"""Direct steady-state solves (radiative_transfer/steady.py).
 
 The reference can only reach t -> infinity by time-marching (its LLNL
 transient needs ~2e4 BDF2 steps, benchmarks/soak.py); the steady module
@@ -25,10 +25,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from radiative_transfer_tpu import load_config
-from radiative_transfer_tpu.models import transport
-from radiative_transfer_tpu.ops.fast_sweep import FastEngine
-from radiative_transfer_tpu.steady import (
+from radiative_transfer import load_config
+from radiative_transfer.models import transport
+from radiative_transfer.ops.fast_sweep import FastEngine
+from radiative_transfer.steady import (
     run_steady_problem,
     solve_steady,
     solve_steady_cycle,

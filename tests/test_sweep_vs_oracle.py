@@ -9,8 +9,8 @@ order only.
 import numpy as np
 import pytest
 
-from radiative_transfer_tpu import Config
-from radiative_transfer_tpu.models import transport
+from radiative_transfer import Config
+from radiative_transfer.models import transport
 from oracle import Oracle
 
 
@@ -108,7 +108,7 @@ def test_grey_deck_semantics():
 def test_affine_scan_matches_sequential():
     import jax.numpy as jnp
 
-    from radiative_transfer_tpu.ops.scan import (
+    from radiative_transfer.ops.scan import (
         affine_scan,
         affine_scan_sequential,
         apply_prefix,

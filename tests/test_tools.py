@@ -8,8 +8,8 @@ import pytest
 
 from conftest import reference_deck
 
-from radiative_transfer_tpu.config.config import load_config
-from radiative_transfer_tpu.data import llnl_opacity
+from radiative_transfer.config.config import load_config
+from radiative_transfer.data import llnl_opacity
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OWN_PRM = os.path.join(REPO, "prm")
@@ -32,7 +32,7 @@ def test_own_decks_match_reference(name):
 
 
 def test_template_deck_is_all_defaults():
-    from radiative_transfer_tpu.config.config import Config
+    from radiative_transfer.config.config import Config
 
     cfg = load_config(os.path.join(OWN_PRM, "template.prm"))
     default = Config()
@@ -61,9 +61,9 @@ def test_plot_cli_roundtrip(tmp_path):
     """CSV write -> read_solution -> figures, on a tiny solved problem."""
     import jax.numpy as jnp
 
-    from radiative_transfer_tpu import plot as plot_mod
-    from radiative_transfer_tpu.models import transport
-    from radiative_transfer_tpu.utils import io as io_mod
+    from radiative_transfer import plot as plot_mod
+    from radiative_transfer.models import transport
+    from radiative_transfer.utils import io as io_mod
 
     cfg = load_config(os.path.join(OWN_PRM, "default.prm"), max_timesteps=3)
     result = transport.run_problem(cfg, dtype=jnp.float64)
@@ -91,8 +91,8 @@ def test_reference_plot_scripts_consume_our_csvs(tmp_path):
 
     import jax.numpy as jnp
 
-    from radiative_transfer_tpu.models import transport
-    from radiative_transfer_tpu.utils import io as io_mod
+    from radiative_transfer.models import transport
+    from radiative_transfer.utils import io as io_mod
 
     script_src = "/root/reference/scripts/plot_results.py"
     if not os.path.exists(script_src):
@@ -132,8 +132,8 @@ def test_bench_frozen_baseline_reproducible():
         "bench", os.path.join(repo, "bench.py"))
     bench = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(bench)
-    a = bench.reference_binary_updates_per_s(False)
-    b = bench.reference_binary_updates_per_s(False)
+    a = bench.reference_updates_per_s()
+    b = bench.reference_updates_per_s()
     assert a == b
     frozen = json.load(open(os.path.join(
         repo, "benchmarks", "results", "reference_baseline_frozen.json")))
